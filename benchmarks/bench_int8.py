@@ -1,11 +1,8 @@
 """int8 serving pipeline bench: B=128 416px throughput per model family.
 
 Measures the full jitted pipeline (int8 forward -> decode -> NMS) through
-the Predictor for darknet53, yolov3-tiny and CSPDarknet plans. Used for the
-round-3 A/Bs:
-- split-weight concat consumption (models/quantize.py `_concat_mode`) vs
-  the round-2 shared-scale requant path (2850 img/s at B=128);
-- CSP int8 (newly supported) vs CSP bf16.
+the Predictor for darknet53, yolov3-tiny and CSPDarknet plans, each beside
+its bf16 pipeline.
 
 Prints one JSON line per measurement (same schema as bench_suite).
 """
@@ -40,8 +37,7 @@ def run(name, model, anchors, B, iters=15):
     params, stats = model.init(jax.random.PRNGKey(0))
     folded = model.fold(params, stats)
     x = jnp.asarray(rng.uniform(0, 1, (B, 416, 416, 3)), jnp.bfloat16)
-    p = Predictor(model, folded, anchors=anchors, image_size=416,
-                  use_pallas_nms=True)
+    p = Predictor(model, folded, anchors=anchors, image_size=416)
     # bf16 reference
     r = p.predict_batch(x)
     jax.block_until_ready(r)
@@ -64,6 +60,15 @@ def run(name, model, anchors, B, iters=15):
 
 
 def main():
+    from yolo_for_turbines_tpu.utils.profiling import (
+        enable_compilation_cache,
+        gpu_cards,
+        require_gpu,
+    )
+
+    require_gpu()
+    enable_compilation_cache()
+    print(gpu_cards(), flush=True)
     run("yolov3", YOLOv3(ModelConfig(num_classes=80)), cfg.ANCHORS, 128)
     run(
         "csp",

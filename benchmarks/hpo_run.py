@@ -1,8 +1,7 @@
-"""Run a real ASHA hyperparameter search on the TPU chip.
+"""Run a real ASHA hyperparameter search on one accelerator.
 
-Round-2 verdict flagged HPO-on-TPU as compile-dominated: every Ray-style
-trial used to pay a fresh ~90s jit per multi-scale bucket. Round 3 moved
-lr/momentum/weight_decay into traced state (optax.inject_hyperparams +
+HPO is compile-dominated when every Ray-style trial pays a fresh full-model
+jit per multi-scale bucket. lr/momentum/weight_decay live in traced state (optax.inject_hyperparams +
 schedule-in-state; train/steps.py::make_train_step), so same-architecture
 trials share one compiled executable. This driver proves the claim on
 hardware: it runs `tune_model` (the reference's tune_model seam,
@@ -16,7 +15,7 @@ off: train_step=1 and eval_step=1, regardless of trial count), not the
 number of trials. Compiles are counted with jax_log_compiles + a logging
 handler — the same signal a human would read.
 
-Usage (TPU host; ~15-25 min for 6 trials):
+Usage (GPU host):
   python benchmarks/hpo_run.py --num-samples 6
 """
 

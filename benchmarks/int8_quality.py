@@ -1,19 +1,18 @@
-"""int8 PTQ quality on TRAINED weights: mAP cost of the 2x-rate int8 path.
+"""int8 PTQ quality on TRAINED weights: mAP cost of the int8 path.
 
-Round 4 proved the int8 export path is *mechanically* exact (survivor-set
-agreement 1.0 vs the live path on the same weights) — but always on
-synthetic-init weights, where every logit collapses to ~0.5 and mAP is
-meaningless. This driver puts a number on what int8 post-training
+The int8 export path is *mechanically* exact (survivor-set agreement vs the
+live path on the same weights) — but on synthetic-init weights every logit
+collapses to ~0.5 and mAP is meaningless. This driver puts a number on what int8 post-training
 quantization actually costs in detection quality: it takes a CONVERGED
-checkpoint from a convergence run (e.g. the round-5 composed-recipe run),
+checkpoint from a convergence run (e.g. the composed-recipe run),
 evaluates the same val split through three formulations of the same
 network, and reports mAP@0.5 per path:
 
 1. train-mode `apply` (train=False) — the trainer's own eval path, the
    number the convergence run reported;
 2. folded-BN bf16 inference (`apply_folded`, raw heads) — the serving path;
-3. int8 PTQ (`quantize_folded` + `apply_inference_int8`) — int8 convs on
-   the MXU at 2x the bf16 rate, calibrated on a train batch.
+3. int8 PTQ (`quantize_folded` + `apply_inference_int8`) — int8 convs
+   with f32 sums, calibrated on a train batch.
 
 All three share ONE decode + NMS + device-mAP tail
 (ops/decode.decode_raw_all, ops/nms.batched_nms,
@@ -21,7 +20,7 @@ ops/map.calc_map_device_batched), so any mAP delta is attributable to the
 forward formulation alone. The reference has no analogue (no quantization
 anywhere); the contrast is against its fp32 AMP serving story.
 
-Usage (on the TPU host, after a convergence run):
+Usage (on a GPU host, after a convergence run):
   python benchmarks/int8_quality.py --root /tmp/conv_composed \
       --identifier composed_r5
 """
@@ -161,10 +160,8 @@ def main():
 
     # 2. folded-BN bf16 serving path
     folded = model.fold(state.params, state.batch_stats)
-    on_tpu = jax.devices()[0].platform not in ("cpu",)
     pred_bf16 = Predictor(
-        model, folded, anchors=anchors, image_size=args.image_size,
-        use_pallas_nms=on_tpu,
+        model, folded, anchors=anchors, image_size=args.image_size
     )
     t0 = time.time()
     map_folded = eval_map_via_predictor(
@@ -176,8 +173,7 @@ def main():
     # 3. int8 PTQ, calibrated on one train batch
     calib, _ = next(iter(train_loader))
     pred_int8 = Predictor(
-        model, folded, anchors=anchors, image_size=args.image_size,
-        use_pallas_nms=on_tpu,
+        model, folded, anchors=anchors, image_size=args.image_size
     ).quantize(jnp.asarray(calib))
     t0 = time.time()
     map_int8 = eval_map_via_predictor(

@@ -79,8 +79,8 @@ def test_checker_tracks_anchor_content_not_position(driver, synth_root):
 
 
 def test_hires_driver_ft_surface():
-    """Pin the hi-res driver's fine-tune stage (VERDICT r4 item 5 follow-up):
-    the flags the round-5 hardware run used exist, the fine-tune restores
+    """Pin the hi-res driver's fine-tune stage: the flags of the fixed-size
+    fine-tune exist, the fine-tune restores
     from the BASE checkpoint (load_checkpoint=True) at one FIXED resolution
     (multi_scale=False), and the eval stage sweeps the same checkpoint
     across sizes — so a future edit can't silently turn the '832 needs 832
@@ -99,15 +99,12 @@ def test_hires_driver_ft_surface():
 
 
 def test_driver_cli_surface(driver):
-    """The flags VERDICT r4 demanded exist and the composed invocation the
-    hardware queue uses parses (benchmarks/r5_hardware_queue.sh)."""
-    import argparse
-
+    """The composed-recipe flags exist, and the driver's usage documents
+    the composed invocations with them."""
     src = _DRIVER.read_text()
     for flag in ("--kmeans-anchors", "--anchors", "--backbone",
                  "--load-weights", "--mosaic", "--freeze-backbone"):
         assert f'"{flag}"' in src, f"driver lost {flag}"
-    # the queue's composed-run argv must parse without SystemExit
-    queue = (_DRIVER.parent / "r5_hardware_queue.sh").read_text()
-    assert "--kmeans-anchors --load-weights --mosaic --decay-lr" in queue
-    assert "--backbone cspdarknet53 --mosaic" in queue
+    usage = " ".join(driver.__doc__.replace("\\\n", " ").split())
+    assert "--kmeans-anchors --load-weights --mosaic --decay-lr" in usage
+    assert "--backbone cspdarknet53 --mosaic" in usage

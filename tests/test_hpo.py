@@ -208,3 +208,35 @@ def test_tune_model_concurrent_all_failed_raises(tmp_path):
             max_concurrent=2,
         )
     assert not (tmp_path / "best_config.json").exists()
+
+
+class _ReportsMemFraction:
+    """Scores each trial with the XLA_PYTHON_CLIENT_MEM_FRACTION its
+    spawned worker process started with."""
+
+    def __call__(self, config, num_epochs, resume):
+        import os
+
+        return float(os.environ["XLA_PYTHON_CLIENT_MEM_FRACTION"]), 0
+
+
+@pytest.mark.parametrize("max_concurrent", [2, 3])
+def test_concurrent_workers_share_card_memory(tmp_path, monkeypatch,
+                                              max_concurrent):
+    """Workers sharing one card each get 0.9 / max_concurrent of its memory
+    (a JAX process otherwise reserves three quarters at start, so the
+    second would fail); the parent's own environment is left as it was."""
+    import os
+
+    monkeypatch.delenv("XLA_PYTHON_CLIENT_MEM_FRACTION", raising=False)
+    best = tune_model(
+        _ReportsMemFraction(),
+        {"lr": Choice((0.1, 0.01))},
+        num_samples=2,
+        model_folder_path=tmp_path,
+        max_epochs=1,
+        grace_period=1,
+        max_concurrent=max_concurrent,
+    )
+    assert best["mAP"] == pytest.approx(0.9 / max_concurrent, abs=1e-4)
+    assert "XLA_PYTHON_CLIENT_MEM_FRACTION" not in os.environ

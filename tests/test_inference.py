@@ -91,26 +91,6 @@ def test_check_model_accuracy_runs(folded_model, rng):
     assert 0 <= class_acc <= 1 and 0 <= noobj_acc <= 1 and 0 <= obj_acc <= 1
 
 
-def test_pallas_iou_kernel_interpret_mode(rng):
-    """Pallas pairwise-IoU matches the jnp IoU matrix (interpreter on CPU)."""
-    import functools
-    from jax.experimental import pallas as pl
-
-    from yolo_for_turbines_tpu.ops.iou import calc_iou
-    from yolo_for_turbines_tpu.ops.pallas import iou_kernel
-
-    boxes = rng.uniform(0.1, 0.9, (100, 4)).astype(np.float32)
-    want = np.asarray(calc_iou(boxes[:, None, :], boxes[None, :, :], "center"))
-
-    orig = pl.pallas_call
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(
-            pl, "pallas_call", functools.partial(orig, interpret=True)
-        )
-        got = np.asarray(iou_kernel.pairwise_iou_pallas.__wrapped__(boxes, "center"))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-
-
 def test_predict_images_batched_serving(folded_model):
     """Native-packed batched serving: per-image boxes in original frames."""
     model, _, _, folded = folded_model
@@ -131,12 +111,8 @@ def test_predict_images_batched_serving(folded_model):
 
 
 def test_fused_nms_kernel_matches_xla(rng):
-    """Fused Pallas greedy NMS == XLA formulation (interpreter on CPU)."""
-    import functools
-    from jax.experimental import pallas as pl
-
+    """Triton-route greedy NMS sweep == XLA formulation (interpreter on CPU)."""
     from yolo_for_turbines_tpu.ops import nms as nms_mod
-    from yolo_for_turbines_tpu.ops.pallas import nms_kernel
 
     boxes = np.zeros((3, 400, 6), np.float32)
     boxes[..., 0:2] = rng.uniform(0.2, 0.8, (3, 400, 2))
@@ -145,12 +121,8 @@ def test_fused_nms_kernel_matches_xla(rng):
     boxes[..., 5] = rng.integers(0, 3, (3, 400))
 
     kept_x, keep_x = nms_mod.batched_nms(boxes, 0.45, 0.3, max_boxes=128)
-
-    orig = pl.pallas_call
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pl, "pallas_call", functools.partial(orig, interpret=True))
-        kept_p, keep_p = nms_mod.batched_nms(
-            boxes, 0.45, 0.3, max_boxes=128, use_pallas=True
-        )
+    kept_p, keep_p = nms_mod.batched_nms(
+        boxes, 0.45, 0.3, max_boxes=128, use_pallas=True, interpret=True
+    )
     np.testing.assert_array_equal(np.asarray(keep_x), np.asarray(keep_p))
     np.testing.assert_allclose(np.asarray(kept_x), np.asarray(kept_p), rtol=1e-6)

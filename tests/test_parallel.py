@@ -74,61 +74,13 @@ def test_sharded_train_step_matches_single_device(rng):
         )
 
 
-def test_multislice_mesh_train_step(rng):
-    """2x4 ('dcn','data') mesh: same update as single device (hierarchical
-    all-reduce is numerically the same sum)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
+def test_dryrun_multichip_refuses_missing_devices():
+    """The dry run never swaps platforms by itself: asking for more devices
+    than JAX has is an error."""
+    from __graft_entry__ import dryrun_multichip
 
-    from yolo_for_turbines_tpu.parallel.mesh import (
-        batch_sharding as bs,
-        create_multislice_mesh,
-    )
-
-    mesh = create_multislice_mesh(2, 4)
-    assert mesh.axis_names == ("dcn", "data")
-    assert mesh.devices.shape == (2, 4)
-
-    model = mini_model()
-    cfg_t = TrainConfig(lr=1e-3, max_num_steps=10, compute_dtype="float32")
-    b, size = 8, 64
-    images = rng.uniform(0, 1, (b, size, size, 3)).astype(np.float32)
-    targets = tuple(
-        np.zeros((b, 3, size // s, size // s, 6), np.float32) for s in (32, 16, 8)
-    )
-    targets[0][:, 0, 1, 1] = [0.5, 0.5, 1.0, 1.0, 1.0, 1.0]
-    anchors = np.abs(rng.normal(1.0, 0.3, (3, 3, 2))).astype(np.float32)
-
-    state1, tx1, _ = create_train_state(model, cfg_t, rng=jax.random.PRNGKey(0))
-    step1 = make_train_step(model, tx1, cfg_t)
-    new1, m1 = step1(
-        state1, jnp.asarray(images), tuple(map(jnp.asarray, targets)),
-        jnp.asarray(anchors),
-    )
-
-    stateM, txM, _ = create_train_state(model, cfg_t, rng=jax.random.PRNGKey(0))
-    # build a step with explicit 2-D shardings
-    import optax
-
-    repl = NamedSharding(mesh, P())
-    data = bs(mesh)
-
-    import yolo_for_turbines_tpu.train.steps as steps_mod
-
-    stepM = jax.jit(
-        lambda s, x, y, a: steps_mod.make_train_step(model, txM, cfg_t)(s, x, y, a),
-        in_shardings=(repl, data, (data, data, data), repl),
-        out_shardings=(repl, repl),
-    )
-    sx = jax.device_put(images, data)
-    sy = tuple(jax.device_put(t, data) for t in targets)
-    newM, mM = stepM(stateM, sx, sy, jnp.asarray(anchors))
-    assert float(m1["loss"]) == pytest.approx(float(mM["loss"]), rel=1e-4)
-    for a, b_ in zip(
-        jax.tree_util.tree_leaves(new1.params),
-        jax.tree_util.tree_leaves(newM.params),
-    ):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b_), rtol=2e-4,
-                                   atol=2e-5)
+    with pytest.raises(RuntimeError, match="needs 16 devices, found 8"):
+        dryrun_multichip(16)
 
 
 def test_sharded_predictor_matches_single_device(rng):
@@ -153,29 +105,6 @@ def test_sharded_predictor_matches_single_device(rng):
     np.testing.assert_array_equal(np.asarray(m1), np.asarray(m8))
     np.testing.assert_allclose(
         np.asarray(k1), np.asarray(k8), rtol=1e-5, atol=1e-6
-    )
-
-
-def test_sharded_predictor_multislice_mesh(rng):
-    """Same over the 2x4 ('dcn','data') mesh (batch sharded over both axes)."""
-    from yolo_for_turbines_tpu.inference import Predictor
-    from yolo_for_turbines_tpu.parallel.mesh import create_multislice_mesh
-
-    model = mini_model()
-    params, stats = model.init(jax.random.PRNGKey(4))
-    folded = model.fold(params, stats)
-    x = rng.uniform(0, 1, (8, 64, 64, 3)).astype(np.float32)
-
-    p1 = Predictor(model, folded, image_size=64, compute_dtype=jnp.float32)
-    k1, m1 = p1.predict_batch(x)
-    pm = Predictor(
-        model, folded, image_size=64, compute_dtype=jnp.float32,
-        mesh=create_multislice_mesh(2, 4),
-    )
-    km, mm = pm.predict_batch(x)
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(mm))
-    np.testing.assert_allclose(
-        np.asarray(k1), np.asarray(km), rtol=1e-5, atol=1e-6
     )
 
 
@@ -228,8 +157,7 @@ class _SinkLogger:
 def test_trainer_dp_end_to_end(dp_synth_data):
     """The LAST untested seam of component #27: Trainer.train_one_epoch's
     sharded prefetch_to_device path + val epoch + device mAP under a real
-    8-device mesh must match the single-device trainer (VERDICT round-2
-    item 4). Covers: mesh-sharded host->HBM placement, DP gradient
+    8-device mesh must match the single-device trainer. Covers: mesh-sharded host->HBM placement, DP gradient
     all-reduce through two full epochs, then the fused eval epoch."""
     from yolo_for_turbines_tpu import config as cfg_mod
     from yolo_for_turbines_tpu.data.loader import get_loaders

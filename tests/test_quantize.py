@@ -111,8 +111,8 @@ def test_tiny_plan_quantizes():
 
 
 def test_csp_plan_quantizes():
-    """CSP stages quantize with the same drift bounds as the other families
-    (VERDICT round-2 item 5): split/transition/fuse convs per-channel,
+    """CSP stages quantize with the same drift bounds as the other families:
+    split/transition/fuse convs per-channel,
     partial stacks like residual blocks, shared-scale cross-stage concat."""
     from helpers import MINI_CSP_LAYERS
 

@@ -102,6 +102,22 @@ def test_bundle_roundtrip_quantized(tmp_path, mini_pred, batch):
         del mini_pred._qparams  # module-scoped fixture: restore bf16 path
 
 
+def test_bundle_with_retired_config_keys_loads(tmp_path, mini_pred, batch):
+    """Bundles written before `fuse_resblocks` was removed carry it in the
+    manifest's model config; loading drops keys ModelConfig no longer has
+    instead of failing in ModelConfig(**m)."""
+    out = save_predictor(mini_pred, tmp_path / "oldbundle")
+    manifest = json.loads((out / "manifest.json").read_text())
+    manifest["model"]["fuse_resblocks"] = True
+    (out / "manifest.json").write_text(json.dumps(manifest))
+    loaded = load_predictor_bundle(out, use_pallas_nms=False)
+    assert loaded.model.cfg == mini_pred.model.cfg
+    kept0, mask0 = mini_pred.predict_batch(batch)
+    kept1, mask1 = loaded.predict_batch(batch)
+    np.testing.assert_array_equal(np.asarray(mask0), np.asarray(mask1))
+    np.testing.assert_array_equal(np.asarray(kept0), np.asarray(kept1))
+
+
 def test_exported_module_matches_live(tmp_path, mini_pred, batch):
     out = save_predictor(mini_pred, tmp_path / "ebundle")
     blob_path = add_export_to_bundle(out, batch_size=2, platforms=("cpu",))
@@ -122,7 +138,7 @@ def test_exported_quantized_matches_live_int8(tmp_path, mini_pred, batch):
     advisor: previously only the bf16 export had an A/B test): quantize ->
     bundle with both trees -> multi-platform export -> ExportedPredictor
     must reproduce the live int8 Predictor exactly, and the portable blob
-    must contain no Mosaic custom-calls."""
+    must contain no Pallas kernel."""
     from yolo_for_turbines_tpu.serving import _portable_predictor
 
     mini_pred.quantize(batch)
@@ -130,18 +146,18 @@ def test_exported_quantized_matches_live_int8(tmp_path, mini_pred, batch):
         kept0, mask0 = mini_pred.predict_batch(batch)  # live int8 path
         out = save_predictor(mini_pred, tmp_path / "qe_bundle")
         blob_path = add_export_to_bundle(
-            out, batch_size=2, platforms=("cpu", "tpu")
+            out, batch_size=2, platforms=("cpu", "cuda")
         )
         manifest = json.loads((out / "manifest.json").read_text())
         assert manifest["exports"][blob_path.name]["quantized"] is True
 
-        # the portable clone pins the int8 router to pure XLA regardless of
-        # the exporting host's backend...
-        assert _portable_predictor(mini_pred)._portable_int8 is True
-        # ...so the multi-platform module has no TPU-only custom-calls
+        # the portable clone pins the XLA NMS regardless of the exporting
+        # host's platform...
+        assert _portable_predictor(mini_pred).use_pallas_nms is False
+        # ...so the multi-platform module has no Pallas kernel in it
         exp = jax.export.deserialize(blob_path.read_bytes())
-        assert set(p.lower() for p in exp.platforms) == {"cpu", "tpu"}
-        assert "tpu_custom_call" not in exp.mlir_module()
+        assert set(p.lower() for p in exp.platforms) == {"cpu", "cuda"}
+        assert "triton" not in exp.mlir_module()
 
         exported = ExportedPredictor(out)
         assert exported.meta["quantized"] is True
@@ -187,13 +203,12 @@ def test_exported_predictor_quantized_flag_mismatch(tmp_path, mini_pred, batch):
 
 
 def test_export_multiplatform_lowering(mini_pred):
-    """A (cpu, tpu) export must lower from this CPU host: the portable
-    pipeline may not touch Mosaic/Pallas (TPU-only at lowering time)."""
-    blob = export_serving_module(
-        mini_pred, batch_size=1, platforms=("cpu", "tpu")
-    )
+    """The default (cpu, cuda) export must lower from this CPU host: the
+    portable pipeline may not hold a Pallas kernel, whose custom call
+    jax.export refuses to serialize."""
+    blob = export_serving_module(mini_pred, batch_size=1)
     exp = jax.export.deserialize(blob)
-    assert set(p.lower() for p in exp.platforms) == {"cpu", "tpu"}
+    assert set(p.lower() for p in exp.platforms) == {"cpu", "cuda"}
 
 
 def test_export_cli(tmp_path, monkeypatch):

@@ -53,25 +53,20 @@ def test_create_spatial_mesh_warns_on_idle_devices():
 
 
 def test_spatial_predictor_pins_pure_xla(rng):
-    """A spatial-partitioning Predictor must pin EVERY Pallas router off,
-    not just NMS: apply_folded's fused-resblock router and the int8
-    router both emit Mosaic custom calls GSPMD cannot row-partition
-    (advisor r4 medium). CPU equivalence tests can't catch a TPU-only
-    router firing, so pin the policy itself."""
+    """A spatial-partitioning Predictor must run the XLA NMS: a Pallas
+    kernel is a per-shard custom call GSPMD cannot row-partition. CPU
+    equivalence tests can't catch the GPU-only kernel firing, so pin the
+    policy itself, even where the caller asks for the kernel."""
     model = mini_model()
-    assert model.cfg.fuse_resblocks  # default ON -> must be overridden
     params, stats = model.init(jax.random.PRNGKey(2))
     folded = model.fold(params, stats)
     mesh = create_spatial_mesh(n_space=4, n_data=2)
-    sp = Predictor(model, folded, image_size=64, mesh=mesh)
+    sp = Predictor(model, folded, image_size=64, mesh=mesh, use_pallas_nms=True)
     assert sp._spatial
     assert sp.use_pallas_nms is False
-    assert sp.model.cfg.fuse_resblocks is False
-    assert getattr(sp, "_portable_int8", False) is True
-    # the plain predictor keeps the routers available
-    plain = Predictor(model, folded, image_size=64)
-    assert plain.model.cfg.fuse_resblocks is True
-    assert getattr(plain, "_portable_int8", False) is False
+    # the plain predictor keeps the caller's choice
+    plain = Predictor(model, folded, image_size=64, use_pallas_nms=True)
+    assert plain.use_pallas_nms is True
 
 
 def _spec_of(constrain, shape):
@@ -89,9 +84,8 @@ def test_row_constraint_policy():
     (parallel/spatial.py MIN_ROWS_PER_SHARD): H stays space-sharded only
     while it divides the space axis AND holds >= 8 rows/shard. The
     gathered regime exists because the unconstrained partitioner produced
-    ~100x-too-large BN gradients at <=4 rows/shard (f64-referenced, see
-    RESULTS.md "Spatial partitioning"); a future edit that re-enters that
-    regime must fail here."""
+    ~100x-too-large BN gradients at <=4 rows/shard (f64-referenced); a
+    future edit that re-enters that regime must fail here."""
     from yolo_for_turbines_tpu.parallel.mesh import create_mesh
     from yolo_for_turbines_tpu.parallel.spatial import (
         MIN_ROWS_PER_SHARD,

@@ -172,7 +172,7 @@ def test_hpo_trials_share_compiled_executable(rng):
     """Two trials differing in lr/momentum/weight_decay must (a) return the
     SAME jitted train-step object and (b) trigger ZERO new compiles for
     trial 2 — the compiled executable is keyed on architecture, not
-    hyperparameters (VERDICT round-2 item 3)."""
+    hyperparameters."""
     model = mini_model()
     cfg_a = TrainConfig(
         lr=1e-3, momentum=0.9, weight_decay=5e-4, batch_size=2,

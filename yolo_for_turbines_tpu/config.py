@@ -1,10 +1,10 @@
-"""Typed configuration for the TPU-native YOLO-for-Turbines framework.
+"""Typed configuration for the YOLO-for-Turbines framework.
 
 Mirrors the knob names and default semantics of the reference's config-as-module
 (reference: code/config.py:10-58,116-201) but as frozen dataclasses so configs are
 hashable, serializable, and safe to close over in jitted functions.
 
-Design notes (TPU-first):
+Design notes:
 - No global mutable state: everything that affects a compiled function is carried
   in a hashable dataclass so jit caching works per-configuration.
 - Anchors are plain nested tuples (hashable); convert with `anchors_array()`.
@@ -165,17 +165,11 @@ class ModelConfig:
     # (tuple of entries; overrides the backbone choice when set). Hashable so
     # the config stays jit-cache-safe.
     layer_config: Optional[tuple] = None
-    # Inference: run qualifying residual stages through the fused Pallas
-    # chain kernel (ops/pallas/resblock_kernel.py) — one HBM read/write per
-    # chunk of blocks instead of per conv. Applied only where it measures
-    # faster than XLA (26x26x512-class stages, -7%); exact arithmetic.
-    fuse_resblocks: bool = True
     # Run the TRAIN-mode stem in space-to-depth layout (models/s2d.py):
-    # arithmetically identical, ~8x better TPU lane/MXU utilization on the
-    # 3-64-channel entry layers (23% off the bs=32 train step). Applies when
-    # the plan prefix matches and H, W are divisible by 4; harmless no-op
-    # otherwise. Folded inference always keeps the plain stem (measured
-    # faster there -- see models/yolov3.py::apply_inference).
+    # arithmetically identical, wider channels on the 3-64-channel entry
+    # layers. Applies when the plan prefix matches and H, W are divisible by
+    # 4; harmless no-op otherwise. Folded inference always keeps the plain
+    # stem (see models/yolov3.py::apply_inference).
     s2d_stem: bool = True
 
     @property
@@ -218,7 +212,7 @@ class TrainConfig:
     num_batch_to_resize: int = 10  # reference: code/dataset.py:27, train.py:45
     ignore_iou_threshold: float = 0.5  # reference: code/dataset.py:51
     seed: int = 424242  # reference: code/utils.py:850
-    compute_dtype: str = "bfloat16"  # TPU-native mixed precision (no GradScaler)
+    compute_dtype: str = "bfloat16"  # bf16 mixed precision (no GradScaler)
     # mAP eval entirely on device (ops.map.calc_map_device_batched, bucketed
     # by image so memory is O(images*K*G)); host path (False) runs the same
     # semantics in numpy and is easier to debug

@@ -24,7 +24,6 @@ import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
 
 MIN_VISIBILITY = 0.4  # reference: code/config.py:82
 
@@ -41,6 +40,8 @@ def resize_longest(img: np.ndarray, size: int) -> np.ndarray:
     nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
     if (nh, nw) == (h, w):
         return img
+    from PIL import Image
+
     return np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
 
 
@@ -231,6 +232,8 @@ def shift_scale(
         1 / s, 0.0, cx - (cx + dx * w) / s,
         0.0, 1 / s, cy - (cy + dy * h) / s,
     )
+    from PIL import Image
+
     out = np.asarray(
         Image.fromarray(img).transform((w, h), Image.AFFINE, inv, Image.BILINEAR)
     )
@@ -269,7 +272,7 @@ class Transform:
 
     Calling convention mirrors Albumentations Compose:
     `t(image=img, bboxes=boxes, rng=...)` -> {"image": ..., "bboxes": ...}.
-    Output image is float32 HWC in [0, 1] (TPU-native NHWC; the reference
+    Output image is float32 HWC in [0, 1] (NHWC batches; the reference
     emits CHW tensors via ToTensorV2).
     """
 

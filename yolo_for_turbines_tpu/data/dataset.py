@@ -1,8 +1,8 @@
 """YOLO dataset: CSV-driven splits, augmentation, anchor-target assignment.
 
 Mirrors the reference's YOLODataset (reference: code/dataset.py:19-167) with
-the same assignment algorithm, as a plain host-side numpy producer (the TPU
-consumes batches via the prefetching loader):
+the same assignment algorithm, as a plain host-side numpy producer (the
+accelerator consumes batches via the prefetching loader):
 
 - split CSVs hold (image_name, label_name) rows; label-less rows are
   negative images that get image-only transforms.
@@ -17,7 +17,7 @@ consumes batches via the prefetching loader):
   MULTI_SCALE_TRAIN_SIZES; the trainer calls it every N batches and jits one
   step per bucket (no recompilation storms).
 
-Images are returned HWC float32 (TPU NHWC layout; the reference returns CHW).
+Images are returned HWC float32 (NHWC layout; the reference returns CHW).
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
 
 from .. import config as cfg
 from ..ops.iou import iou_aligned  # jnp, but works on numpy via asarray
@@ -133,12 +132,11 @@ class YOLODataset:
         self.mosaic = mosaic
         self.multi_scale = multi_scale
         self.ignore_iou_threshold = 0.5
-        # Opt-in RAM cache of decoded images: JPEG decode is ~5 ms/img, half
-        # the remaining __getitem__ cost on a 1-core host
-        # (benchmarks/RESULTS.md "input pipeline") and pure waste after the
-        # first epoch. ~0.9 MB per 640x480 image, and multi-scale caches the
-        # decode drafted to the LARGEST bucket (so up-buckets never upsample
-        # a degraded draft) — worst-case sizing is therefore at
+        # Opt-in RAM cache of decoded images: JPEG decode is a large share
+        # of the __getitem__ cost on a host with few cores, and pure waste
+        # after the first epoch. ~0.9 MB per 640x480 image, and multi-scale
+        # caches the decode drafted to the LARGEST bucket (so up-buckets
+        # never upsample a degraded draft) — worst-case sizing is therefore at
         # max(MULTI_SCALE_TRAIN_SIZES), not image_size.
         # `cache_images_bytes` bounds the footprint: once the budget is hit
         # the cache stops inserting (no eviction — every epoch touches every
@@ -180,6 +178,8 @@ class YOLODataset:
             cached = self._image_cache.get(idx)
             if cached is not None:
                 return cached
+        from PIL import Image
+
         img_path = self.img_folder / self.annotations[idx][0]
         img = Image.open(img_path)
         # JPEG fast path: let libjpeg decode at 1/2..1/8 scale when the

@@ -1,10 +1,10 @@
-"""Batched, prefetching data loader feeding the TPU.
+"""Batched, prefetching data loader feeding the accelerator.
 
 Replaces torch DataLoader worker processes (reference: code/utils.py:704-784)
 with a thread-pool producer + a bounded prefetch queue. PIL decode and numpy
 augmentation release the GIL for their hot parts, so threads overlap host
 work with device steps without fork overhead; `prefetch_to_device` moves
-batches to the TPU asynchronously so step N+1's transfer overlaps step N's
+batches to the device asynchronously so step N+1's transfer overlaps step N's
 compute.
 
 Mixed-size safety: the reference defines a padding `collate_fn` but never

@@ -15,8 +15,7 @@ Box math and the rng stream live entirely in this module, so labels are
 bit-identical between the two pixel backends:
 - native C++ (native/packer.cpp::mosaic_cutout): samples only the pixels
   inside the cutout window -- the full-canvas compose spends 3/4 of its
-  resample work on pixels the cutout never sees (measured 42.9 -> 3.5
-  ms/sample, benchmarks/RESULTS.md "mosaic input path").
+  resample work on pixels the cutout never sees.
 - numpy/PIL fallback: the literal reference geometry (resize all 4, build
   the canvas, slice), used when no C++ toolchain is available.
 Pixel work is also deferred until a cutout is FOUND, so sentinel returns

@@ -21,14 +21,15 @@ from . import config as cfg
 from .data.augment import letterbox, unletterbox_boxes
 from .models.yolov3 import YOLOv3
 from .ops.decode import decode_all_scales
-from .ops.nms import batched_nms, nms_to_list
+from .ops.nms import batched_nms, default_use_pallas_nms, nms_to_list
 
 
 class Predictor:
     """Bundles a model plan + folded params with a jitted predict function.
 
     One compiled executable per (batch_size, image_size) bucket; compile
-    cache is keyed by input shape via jit.
+    cache is keyed by input shape via jit. `use_pallas_nms=None` takes the
+    platform's choice (`ops.nms.default_use_pallas_nms`).
     """
 
     def __init__(
@@ -41,7 +42,7 @@ class Predictor:
         nms_iou_threshold: float = cfg.NMS_IOU_THRESHOLD,
         max_boxes: int = 256,
         compute_dtype=jnp.bfloat16,
-        use_pallas_nms: bool = False,
+        use_pallas_nms: Optional[bool] = None,
         mesh=None,
     ):
         self.model = model
@@ -65,6 +66,8 @@ class Predictor:
         self.nms_iou_threshold = nms_iou_threshold
         self.max_boxes = max_boxes
         self.compute_dtype = compute_dtype
+        if use_pallas_nms is None:
+            use_pallas_nms = default_use_pallas_nms()
         self.use_pallas_nms = use_pallas_nms
         self.mesh = mesh
         from .parallel.spatial import SPACE_AXIS
@@ -87,23 +90,10 @@ class Predictor:
 
             from .parallel.spatial import spatial_image_sharding
 
-            # Pallas kernels are per-shard custom calls GSPMD cannot
-            # partition across the row axis; the pure-XLA NMS/conv paths
-            # partition fine and are what SP uses. That includes the
-            # fused-resblock router inside apply_folded and the int8
-            # router in apply_inference_int8 — on a TPU backend either
-            # would place a Mosaic custom call inside the row-partitioned
-            # jit (compile failure or a forced all-gather that defeats
-            # SP's memory scaling), so pin both pure-XLA here, mirroring
-            # serving._portable_predictor.
+            # A Pallas kernel is a per-shard custom call GSPMD cannot
+            # partition across the row axis; the XLA NMS partitions fine
+            # and is what SP uses.
             self.use_pallas_nms = False
-            if self.model.cfg.fuse_resblocks:
-                import dataclasses as _dc
-
-                self.model = YOLOv3(
-                    _dc.replace(self.model.cfg, fuse_resblocks=False)
-                )
-            self._portable_int8 = True
             repl = NamedSharding(mesh, P())
             x_sh = spatial_image_sharding(mesh)
 
@@ -128,9 +118,11 @@ class Predictor:
             # Multi-chip serving: the pipeline is embarrassingly parallel
             # per image (forward + decode + NMS, zero cross-image
             # communication), so shard_map over the mesh's data axis runs
-            # each chip on its local batch shard with local shapes — the
-            # Pallas NMS/residual kernels work unchanged per shard. Params
-            # replicate; batch must divide the mesh size (see
+            # each device on its local batch shard with local shapes — the
+            # Pallas NMS kernel works unchanged per shard (check_vma=False:
+            # see nms_kernel.greedy_sweep_pallas; with no collective inside
+            # there is nothing for the check to catch). Params replicate;
+            # batch must divide the mesh size (see
             # parallel.mesh.pad_batch_to_multiple for ragged tails).
             from jax import shard_map
             from jax.sharding import PartitionSpec as P
@@ -149,6 +141,7 @@ class Predictor:
                         mesh=mesh,
                         in_specs=(P(), batch_spec),
                         out_specs=(batch_spec, batch_spec),
+                        check_vma=False,
                     )
                 )
 
@@ -163,7 +156,7 @@ class Predictor:
 
     def quantize(self, calib_batch) -> "Predictor":
         """Switch this predictor to the int8 PTQ path (models/quantize.py):
-        int8 convs on the MXU (2x bf16 rate), bf16 heads. `calib_batch` is a
+        int8 convs with f32 sums, bf16 heads. `calib_batch` is a
         representative (N, S, S, 3) [0,1] batch for activation-scale
         calibration. Returns self."""
         from .models.quantize import quantize_folded
@@ -192,9 +185,6 @@ class Predictor:
                 self.model.plan, params, x,
                 activation=self.model.cfg.activation, raw_heads=True,
                 compute_dtype=self.compute_dtype,
-                # set by serving._portable_predictor: multi-platform exports
-                # must stay pure XLA (no Mosaic custom-calls in the blob)
-                portable=getattr(self, "_portable_int8", False),
             )
             boxes = decode_raw_all(
                 raw, scaled_anchors, grid_sizes, self.model.cfg.num_classes
@@ -343,7 +333,6 @@ def load_predictor(
     (strides follow the backbone automatically)."""
     from .models.darknet_weights import load_darknet_weights
 
-    use_pallas_nms = jax.devices()[0].platform not in ("cpu",)
     strides = (32, 16) if backbone == "yolov3_tiny" else (32, 16, 8)
     model = YOLOv3(
         cfg.ModelConfig(
@@ -363,5 +352,4 @@ def load_predictor(
         image_size=image_size,
         conf_threshold=conf_threshold,
         nms_iou_threshold=nms_iou_threshold,
-        use_pallas_nms=use_pallas_nms,
     )

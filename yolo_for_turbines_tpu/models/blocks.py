@@ -1,7 +1,7 @@
-"""Functional building blocks for YOLO models on TPU.
+"""Functional building blocks for YOLO models.
 
 These are pure functions over parameter pytrees -- no module objects, no mutable
-state. Layout is NHWC (channels-last), the native fast layout for TPU convs;
+state. Layout is NHWC (channels-last), the layout cuDNN runs bf16 convs in;
 weights are HWIO. Mixed precision is a cast policy: parameters are stored in
 float32, compute runs in bfloat16 (policy chosen by the caller), and BatchNorm
 statistics stay in float32.
@@ -31,10 +31,8 @@ BN_MOMENTUM = 0.1  # torch default: new = (1 - m) * old + m * batch
 
 
 def leaky_relu(x):
-    # algebraic form of leaky_relu(x, 0.1): 0.55x + 0.45|x|. Identical values,
-    # but mul/add/abs fuse into the conv epilogue where XLA:TPU leaves the
-    # compare+select formulation as a separate full-activation HBM pass
-    # (profiled at ~13ms/iter of the 416px B=128 forward).
+    # algebraic form of leaky_relu(x, 0.1): 0.55x + 0.45|x|. Identical values;
+    # mul/add/abs fuse into the conv epilogue like any elementwise chain.
     return 0.55 * x + 0.45 * jnp.abs(x)
 
 
@@ -106,8 +104,8 @@ def conv2d(x, w, stride: int, padding):
     features, breaking darknet-weight parity.
     """
     # f32 operands: force full-precision accumulation (XLA's DEFAULT uses
-    # reduced-precision passes on some backends). bf16 operands are native
-    # MXU inputs with f32 accumulation regardless, so leave them DEFAULT.
+    # reduced-precision passes, TF32 on GPUs). bf16 operands accumulate in
+    # f32 regardless, so leave them DEFAULT.
     precision = (
         jax.lax.Precision.HIGHEST if x.dtype == jnp.float32 else None
     )
@@ -229,7 +227,7 @@ def fold_conv_bn(params: Dict, stats: Dict) -> Dict:
 
     This removes the BN elementwise pass entirely on the inference hot path --
     one conv + bias + activation per layer, which XLA fuses into the conv
-    epilogue on the MXU.
+    epilogue.
     """
     inv = params["scale"] / np.sqrt(np.asarray(stats["var"]) + BN_EPS)
     w = params["w"] * jnp.asarray(inv)[None, None, None, :]

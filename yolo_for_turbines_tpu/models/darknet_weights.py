@@ -17,7 +17,7 @@ File format (parity with reference code/model.py:160-170, 227-337):
   requires_grad=False only on layers it copied, code/model.py:306-309,
   330-334). Here that becomes a boolean pytree mask for `optax.masked`.
 
-Conv weights are transposed OIHW -> HWIO for the NHWC/TPU layout.
+Conv weights are transposed OIHW -> HWIO for the NHWC layout.
 """
 
 from __future__ import annotations

@@ -1,13 +1,11 @@
 """Space-to-depth stem: exact reformulation of the low-channel entry layers.
 
-Why: on TPU, conv operands are tiled 8x128 (sublanes x lanes) with the
-channel dimension on lanes. The Darknet-53 stem (3->32 at 416^2, 32->64 at
-208^2, the first residual block, 64->128) runs with 3-64 channels, so every
-HBM read/write and every MXU pass wastes 50-97% of the lanes -- profiled at
-3-23 TFLOP/s on v5e while the >=128-channel layers hit 160-190. These four
-plan entries were 32 ms of the 97 ms bs=32 train step.
+Why: the Darknet-53 stem (3->32 at 416^2, 32->64 at 208^2, the first
+residual block, 64->128) runs with 3-64 channels, which fill only a small
+part of a wide matrix unit and of every memory transaction. Whether the
+rewrite pays on the GPU is for the train-step benchmark to decide.
 
-Fix (the MLPerf-TPU "space-to-depth" trick): rewrite the stem to operate on
+Fix (the MLPerf "space-to-depth" trick): rewrite the stem to operate on
 a 2x2-space-to-depth view of its tensors, where a (B, H, W, C) activation is
 stored as (B, H/2, W/2, 4C) with channel index (i*2 + j)*C + c for spatial
 phase (i, j). Each stem conv's kernel is re-laid-out (with structural

@@ -1,4 +1,4 @@
-"""TPU-native functional YOLOv3 (Darknet-53 backbone + 3-scale heads).
+"""Functional YOLOv3 (Darknet-53 backbone + 3-scale heads).
 
 The architecture is driven by the same declarative layer DSL as the reference
 (reference: code/model.py:20-45): a tuple is (filters, kernel, stride) for a
@@ -510,25 +510,25 @@ def apply_inference(
     activation: str = "leaky_relu",
     compute_dtype=jnp.bfloat16,
     raw_heads: bool = False,
-    fuse_resblocks: bool = True,
 ):
     """Inference forward over folded params: conv + bias + activation only.
 
-    Unlike `apply`, NO space-to-depth stem here: in folded inference the
-    plain stem layers already run near HBM speed-of-light (no BN-stat
-    epilogues), so the dense-kernel FLOP blowup is a measured net loss at
-    B=128/416px -- full 4-entry rewrite 1860 img/s, 2-entry 2039, plain
-    2061 (see benchmarks/RESULTS.md). The train-mode `apply` keeps it.
+    Unlike `apply`, no space-to-depth stem here: folded inference keeps the
+    plain stem (models/s2d.py is a train-mode layout).
 
     raw_heads=True returns each head's raw NHWC conv output
     (B, S, S, A*(5+C)) in compute dtype, skipping the (B, A, S, S, 5+C)
-    transpose + f32 cast. The transpose materializes ~350MB per large scale
-    at batch 128 and is pure layout shuffling the decode does not need --
-    `ops.decode.decode_raw` consumes this layout directly (the reshape to
-    (B, S, S, A, 5+C) is free). Use for the throughput pipeline; the default
-    path keeps the reference's public layout (code/model.py:146-148).
+    transpose + f32 cast. The transpose is pure layout shuffling the decode
+    does not need -- `ops.decode.decode_raw` consumes this layout directly
+    (the reshape to (B, S, S, A, 5+C) is free). Use for the throughput
+    pipeline; the default path keeps the reference's public layout
+    (code/model.py:146-148).
+
+    Each plan entry runs under a `jax.named_scope` ("<Entry><index>", e.g.
+    "PlanResidual8" for the 26x26x512 stage at 416 px), so profiler traces
+    can attribute device time to backbone stages and heads.
     """
-    from .blocks import conv2d
+    from .blocks import conv2d, maxpool2d
     from .cspdarknet import PlanCSP, apply_csp_inference
 
     act = get_activation(activation)
@@ -542,54 +542,41 @@ def apply_inference(
         y = y + p["b"].astype(compute_dtype)
         return act(y) if with_act else y
 
-    for entry, p in zip(plan, folded_params):
-        if isinstance(entry, PlanCSP):
-            x = apply_csp_inference(entry, p, x, conv)
-            if entry.save_route:
-                routes.append(x)
-        elif isinstance(entry, PlanConv):
-            x = conv(p["conv"], x, entry.kernel, entry.stride)
-        elif isinstance(entry, PlanResidual):
-            fused = None
-            if fuse_resblocks and entry.use_residual:
-                from ..ops.pallas.resblock_kernel import (
-                    apply_residual_stage_fused,
-                )
-
-                # fused Pallas chain where it measures faster than the XLA
-                # convs (26x26x512-class stages; see resblock_kernel.py)
-                fused = apply_residual_stage_fused(p, x, activation)
-            if fused is not None:
-                x = fused
-            else:
+    for idx, (entry, p) in enumerate(zip(plan, folded_params)):
+        with jax.named_scope(f"{type(entry).__name__}{idx}"):
+            if isinstance(entry, PlanCSP):
+                x = apply_csp_inference(entry, p, x, conv)
+                if entry.save_route:
+                    routes.append(x)
+            elif isinstance(entry, PlanConv):
+                x = conv(p["conv"], x, entry.kernel, entry.stride)
+            elif isinstance(entry, PlanResidual):
                 for bp in p["blocks"]:
                     y = conv(bp["conv1"], x, 1, 1)
                     y = conv(bp["conv2"], y, 3, 1)
                     x = x + y if entry.use_residual else y
-            if entry.save_route:
-                routes.append(x)
-        elif isinstance(entry, PlanHead):
-            y = conv(p["conv1"], x, 3, 1)
-            y = conv(p["conv2"], y, 1, 1, with_act=False)
-            if raw_heads:
-                preds.append(y)
-            else:
-                preds.append(
-                    _head_reshape(
-                        y.astype(jnp.float32),
-                        entry.num_classes,
-                        entry.anchors_per_scale,
+                if entry.save_route:
+                    routes.append(x)
+            elif isinstance(entry, PlanHead):
+                y = conv(p["conv1"], x, 3, 1)
+                y = conv(p["conv2"], y, 1, 1, with_act=False)
+                if raw_heads:
+                    preds.append(y)
+                else:
+                    preds.append(
+                        _head_reshape(
+                            y.astype(jnp.float32),
+                            entry.num_classes,
+                            entry.anchors_per_scale,
+                        )
                     )
-                )
-        elif isinstance(entry, PlanMaxPool):
-            from .blocks import maxpool2d
-
-            x = maxpool2d(x, entry.kernel, entry.stride)
-        elif isinstance(entry, PlanRoute):
-            routes.append(x)
-        elif isinstance(entry, PlanUpsample):
-            x = upsample2x(x)
-            x = jnp.concatenate([x, routes.pop().astype(x.dtype)], axis=-1)
+            elif isinstance(entry, PlanMaxPool):
+                x = maxpool2d(x, entry.kernel, entry.stride)
+            elif isinstance(entry, PlanRoute):
+                routes.append(x)
+            elif isinstance(entry, PlanUpsample):
+                x = upsample2x(x)
+                x = jnp.concatenate([x, routes.pop().astype(x.dtype)], axis=-1)
     return preds
 
 
@@ -657,5 +644,4 @@ class YOLOv3:
             activation=self.cfg.activation,
             compute_dtype=compute_dtype,
             raw_heads=raw_heads,
-            fuse_resblocks=self.cfg.fuse_resblocks,
         )

@@ -2,7 +2,7 @@
 
 `batch_letterbox` is the serving/eval input packer: PIL decodes, C++ does
 bilinear letterbox + /255 + NHWC batch assembly with a std::thread pool,
-writing one contiguous float32 buffer jax.device_put ships to the TPU.
+writing one contiguous float32 buffer jax.device_put ships to the device.
 Falls back to the pure-numpy path (data/augment.py) when no C++ toolchain
 is available -- the framework never hard-requires the native library.
 """
@@ -165,8 +165,7 @@ def mosaic_cutout(
     """Compose the (size, size, 3) uint8 mosaic cutout directly from the 4
     source images, sampling only pixels inside the cutout window (the numpy
     path resizes all 4 images and builds the full (2*size)^2 canvas first --
-    3/4 of that work never reaches the output; measured 42.9 -> 3.5
-    ms/sample, benchmarks/RESULTS.md "mosaic input path").
+    3/4 of that work never reaches the output).
 
     Args:
         images: 4 HWC uint8 source images.

@@ -1,11 +1,11 @@
-// Native host-side input packer for the TPU data pipeline.
+// Native host-side input packer for the data pipeline.
 //
 // The reference's input path is PIL + Albumentations in DataLoader worker
 // processes (reference: code/utils.py:757-779, code/config.py:89-113). Here
 // the eval/serving hot loop -- bilinear letterbox resize + center pad +
 // /255 normalization + NHWC batch assembly -- is a single C++ call,
 // multithreaded with std::thread, writing straight into the pinned numpy
-// buffer that jax.device_put ships to the TPU. No Python byte shuffling,
+// buffer that jax.device_put ships to the device. No Python byte shuffling,
 // no per-image allocations.
 //
 // Geometry matches data/augment.py::letterbox: scale = size / max(h, w),

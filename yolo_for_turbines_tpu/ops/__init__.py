@@ -6,5 +6,11 @@ from .decode import (
     decode_raw_scale,
     decode_raw_all,
 )
-from .nms import non_max_suppression, batched_nms, nms_single, nms_to_list
+from .nms import (
+    batched_nms,
+    default_use_pallas_nms,
+    nms_single,
+    nms_to_list,
+    non_max_suppression,
+)
 from .map import calc_map, calc_map_device

@@ -4,7 +4,7 @@ The reference's `cells_to_boxes` (reference: code/utils.py:86-148) applies
 sigmoid/exp **in place** on the caller's tensor and returns nested Python
 lists via `.tolist()`, forcing a device->host transfer per batch. Here decode
 is a pure jnp function returning a device array; the eval loop keeps
-everything on the TPU until the final (tiny) NMS survivors are pulled.
+everything on the device until the final (tiny) NMS survivors are pulled.
 
 Output layout parity: (B, 3*S*S, 6) with rows [cx, cy, w, h, score, class],
 all coordinates normalized to the image, identical to the reference's list
@@ -75,7 +75,7 @@ def decode_raw_scale(raw, anchors, grid_size: int, num_classes: int):
 
     Throughput path: consumes `apply_inference(..., raw_heads=True)` output
     with a free reshape instead of the (B, A, S, S, 5+C) transpose; compute
-    stays in the input dtype (bf16 on TPU) with an f32 result. Box ordering
+    stays in the input dtype (bf16) with an f32 result. Box ordering
     within the scale differs from `decode_scale` (cells-major instead of
     anchor-major) -- irrelevant downstream, NMS re-sorts by score.
     """

@@ -1,24 +1,25 @@
-"""Fused Pallas greedy-NMS kernel: IoU matrix + sequential sweep, one launch.
+"""Greedy NMS sweep as one Pallas kernel through Triton (GPU).
 
 The XLA formulation (ops/nms.py) runs the greedy suppression as a K-step
-`lax.fori_loop` of tiny kernels -- ~31ms p50 for K=256 on v5e, pure kernel-
-launch latency. Here the whole thing is ONE Pallas program per image:
+`lax.fori_loop`; on the GPU every step is at least one kernel launch. Here
+the whole sweep is one program per image (`grid=(B,)`, the programs run in
+parallel across the SMs):
 
-1. build the (K, K) IoU + same-class + strictly-later suppression matrix in
-   VMEM (K=256 -> 256KB f32, trivially fits),
-2. run the K-step greedy sweep *inside* the kernel: step i reads row i with
-   a dynamic sublane slice, extracts keep[i] with a one-hot dot (dynamic
-   lane indexing is not a thing on the VPU), and clears suppressed lanes --
-   each step is a few (1, K) VPU ops, so the sweep is microseconds, not
-   milliseconds.
+- step i reads row i of the image's (K, K) suppression matrix from device
+  memory (K bytes; the row does not depend on the loop carry, so Triton can
+  prefetch it), extracts keep[i] from the register-resident keep vector
+  with a masked reduction, and clears row i's boxes if box i is still kept.
 
-Inputs are the top-K candidates sorted by descending score (the caller's
-`lax.top_k` output), packed as rows (K, 8) = [x1, y1, w, h, class, valid,
-0, 0] and their transpose (8, K) so both broadcast orientations come from
-natural slices (same trick as iou_kernel.py). Batched via a grid over B.
+The suppression matrix itself (same class, IoU >= threshold, later in score
+order) is built by the caller with the same XLA expression the fori_loop
+sweep uses. Computing IoU inside the kernel would not give bit-identical
+keep masks: Triton lowers f32 division to an approximate instruction and may
+contract multiply-adds differently from XLA, so a pair whose IoU sits within
+an ulp of the threshold could flip. The matrix costs one parallel XLA fusion
+and K*K bytes per image (64 KB at K=256), which stays in L2.
 
-Greedy semantics match the reference's pop-loop (code/utils.py:150-191):
-a box cleared by an earlier kept box no longer suppresses anyone.
+Greedy semantics match the reference's pop-loop (code/utils.py:150-191): a
+box cleared by an earlier kept box no longer suppresses anyone.
 """
 
 from __future__ import annotations
@@ -27,106 +28,65 @@ import functools
 
 import jax
 import jax.numpy as jnp
-
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-_LANE = 128
+# one warp: the sweep is a chain of K dependent steps, and a one-warp
+# reduction needs only shuffles, no shared-memory barrier
+_NUM_WARPS = 1
 
 
-def _nms_kernel(rows_ref, cols_ref, thr_ref, out_ref, sup_ref):
-    r = rows_ref[0]  # (K, 8) -- blocks carry a leading batch dim of 1
-    c = cols_ref[0]  # (8, K)
-    k = r.shape[0]
-    thr = thr_ref[0]
+def padded_size(k: int) -> int:
+    """Triton block shapes are powers of two: K rounded up to the next one."""
+    return max(1, 1 << (k - 1).bit_length())
 
-    x1i, y1i, wi, hi = r[:, 0:1], r[:, 1:2], r[:, 2:3], r[:, 3:4]
-    clsi = r[:, 4:5]
-    x1j, y1j, wj, hj = c[0:1, :], c[1:2, :], c[2:3, :], c[3:4, :]
-    clsj = c[4:5, :]
-    valid = c[5:6, :]  # (1, K)
 
-    xA = jnp.maximum(x1i, x1j)
-    yA = jnp.maximum(y1i, y1j)
-    xB = jnp.minimum(x1i + wi, x1j + wj)
-    yB = jnp.minimum(y1i + hi, y1j + hj)
-    inter = jnp.maximum(xB - xA, 0.0) * jnp.maximum(yB - yA, 0.0)
-    union = wi * hi + wj * hj - inter
-    iou = inter / (union + 1e-6)
-
-    same = clsi == clsj
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (k, k), 0)
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (k, k), 1)
-    later = row_ids < col_ids
-    # stage the suppression matrix in VMEM scratch: Mosaic supports dynamic
-    # sublane slicing on refs, not on values
-    sup_ref[:] = jnp.where(same & (iou >= thr) & later, 1.0, 0.0)  # (K, K)
-
-    col_iota = jax.lax.broadcasted_iota(jnp.int32, (1, k), 1)
+def _sweep_kernel(sup_ref, valid_ref, keep_ref):
+    k = keep_ref.shape[0]
+    col = jax.lax.broadcasted_iota(jnp.int32, (k,), 0)
 
     def body(i, keep):
-        row_i = sup_ref[pl.ds(i, 1), :]  # (1, K)
-        onehot = jnp.where(col_iota == i, 1.0, 0.0)
-        keep_i = jnp.sum(keep * onehot)
-        return keep * (1.0 - row_i * keep_i)
+        keep_i = jnp.max(jnp.where(col == i, keep, 0))
+        row = sup_ref[i, :].astype(jnp.int32)
+        return jnp.where((row != 0) & (keep_i != 0), 0, keep)
 
-    keep = jax.lax.fori_loop(0, k, body, valid)
-    out_ref[0, 0, :] = keep[0]
+    keep_ref[...] = jax.lax.fori_loop(0, k, body, valid_ref[...])
 
 
-@functools.partial(jax.jit, static_argnames=("box_format",))
-def greedy_nms_pallas(
-    cand, valid, iou_threshold, box_format: str = "center"
-):
-    """Fused greedy NMS over pre-sorted candidates.
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def greedy_sweep_pallas(suppress, valid, interpret: bool = False):
+    """Greedy NMS sweep over pre-sorted candidates.
 
     Args:
-        cand: (B, K, 6) top-K candidates per image, descending score.
+        suppress: (B, K, K) bool; [b, i, j] is True where box i, if kept,
+            suppresses box j (same class, IoU >= threshold, j after i).
         valid: (B, K) bool candidate validity (score above threshold).
-        iou_threshold: scalar.
-        box_format: "center" (cxcywh) or top-left xywh otherwise.
+        interpret: run the kernel in the Pallas interpreter (CPU tests).
+
+    Under `shard_map` the kernel needs `check_vma=False`: the ops inside a
+    Pallas kernel do not carry the mesh axes their inputs vary over.
 
     Returns:
         (B, K) bool keep mask.
     """
-    cand = jnp.asarray(cand, jnp.float32)
-    b, k = cand.shape[0], cand.shape[1]
-    kp = max(_LANE, -(-k // _LANE) * _LANE)
-
-    boxes = cand[..., :4]
-    if box_format == "center":
-        xy = boxes[..., :2] - boxes[..., 2:4] / 2
-        boxes = jnp.concatenate([xy, boxes[..., 2:4]], axis=-1)
-    packed = jnp.concatenate(
-        [
-            boxes,
-            cand[..., 5:6],  # class
-            jnp.asarray(valid, jnp.float32)[..., None],
-            jnp.zeros((b, k, 2), jnp.float32),
-        ],
-        axis=-1,
-    )  # (B, K, 8)
-    if kp != k:
-        packed = jnp.pad(packed, ((0, 0), (0, kp - k), (0, 0)))
-
-    rows = packed  # (B, Kp, 8)
-    cols = jnp.swapaxes(packed, 1, 2)  # (B, 8, Kp)
-    thr = jnp.full((1,), iou_threshold, jnp.float32)
-
+    b, k = valid.shape
+    kp = padded_size(k)
+    sup = jnp.pad(
+        suppress.astype(jnp.int8), ((0, 0), (0, kp - k), (0, kp - k))
+    )
+    val = jnp.pad(valid.astype(jnp.int32), ((0, 0), (0, kp - k)))
     keep = pl.pallas_call(
-        _nms_kernel,
-        # out is (B, 1, Kp) so each block's trailing dims (1, Kp) are
-        # TPU-legal regardless of B
-        out_shape=jax.ShapeDtypeStruct((b, 1, kp), jnp.float32),
+        _sweep_kernel,
+        out_shape=jax.ShapeDtypeStruct((b, kp), jnp.int32),
         grid=(b,),
         in_specs=[
-            pl.BlockSpec((1, kp, 8), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, kp), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
+            pl.BlockSpec((None, kp, kp), lambda i: (i, 0, 0)),
+            pl.BlockSpec((None, kp), lambda i: (i, 0)),
         ],
-        out_specs=pl.BlockSpec(
-            (1, 1, kp), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((kp, kp), jnp.float32)],
-    )(rows, cols, thr)
-    return keep[:, 0, :k] > 0.5
+        out_specs=pl.BlockSpec((None, kp), lambda i: (i, 0)),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS, num_stages=2),
+        interpret=interpret,
+        name="nms_greedy_sweep",
+    )(sup, val)
+    return keep[:, :k] != 0

@@ -1,12 +1,13 @@
-"""Device mesh + sharding helpers (data parallelism over ICI).
+"""Device mesh + sharding helpers (data parallelism).
 
 The reference has no distributed training at all (SURVEY.md section 2 #27) --
 its only parallelism is DataLoader workers and AMP. Here data parallelism is
 first-class and idiomatic JAX: a 1-D `jax.sharding.Mesh` over all local
 devices, batches sharded along the leading axis, parameters replicated.
 Inside `jit`, XLA partitions the conv stack per-shard and inserts the
-gradient `all-reduce` over ICI automatically -- there is no hand-written
-collective (the psum rides the mesh via the sharded batch dimension).
+gradient `all-reduce` automatically (NCCL on GPUs) -- there is no
+hand-written collective (the psum rides the mesh via the sharded batch
+dimension).
 
 A 62M-parameter convnet needs no tensor/pipeline parallelism; DP is the only
 strategy that pays (SURVEY.md section 2 #27). The mesh axis is named "data"
@@ -35,33 +36,8 @@ def create_mesh(
     return Mesh(np.asarray(devices), (DATA_AXIS,))
 
 
-DCN_AXIS = "dcn"
-
-
-def create_multislice_mesh(
-    n_slices: int, chips_per_slice: int, devices: Optional[Sequence] = None
-) -> Mesh:
-    """2-D ("dcn", "data") mesh for multi-slice data parallelism.
-
-    Batches shard over BOTH axes (see `batch_sharding`), so XLA's gradient
-    all-reduce decomposes hierarchically: reduce-scatter/all-gather over the
-    fast ICI ring within each slice, and only the per-slice partial crosses
-    the slow DCN link -- the standard scaling-book layout. Single-slice
-    training should use `create_mesh` (pure ICI).
-    """
-    if devices is None:
-        devices = jax.devices()
-    n = n_slices * chips_per_slice
-    if len(devices) < n:
-        raise ValueError(f"need {n} devices, have {len(devices)}")
-    arr = np.asarray(devices[:n]).reshape(n_slices, chips_per_slice)
-    return Mesh(arr, (DCN_AXIS, DATA_AXIS))
-
-
 def batch_sharding(mesh: Mesh) -> NamedSharding:
-    """Shard the leading (batch) axis across all data-parallel axes."""
-    if DCN_AXIS in mesh.axis_names:
-        return NamedSharding(mesh, P((DCN_AXIS, DATA_AXIS)))
+    """Shard the leading (batch) axis across the data-parallel axis."""
     return NamedSharding(mesh, P(DATA_AXIS))
 
 

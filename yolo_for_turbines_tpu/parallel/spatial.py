@@ -7,16 +7,16 @@ training resolution, and the reference's demo simply resizes the full
 upload down to one 416px tile (reference: code/demo.py:30-41,
 code/utils.py:475-501), throwing away the resolution that small surface
 defects live in. With SP, one high-resolution image's rows are split
-across the mesh's "space" axis, so N chips jointly hold an activation
-footprint no single chip could, and inference at 2-4x the trained
+across the mesh's "space" axis, so N devices jointly hold an activation
+footprint no single device could, and inference at 2-4x the trained
 resolution becomes a mesh-shape change instead of an OOM.
 
 There is NO hand-written halo code here, and none is needed: the model is
 jitted with the input annotated `P("data", "space")` and XLA's GSPMD
 partitioner derives the halo exchange every conv/pool window needs at
-shard boundaries (a collective-permute of the 1-2 boundary rows over ICI
-per conv — tiny next to the activation traffic it saves). This is the
-idiomatic TPU formulation: annotate shardings, let the partitioner insert
+shard boundaries (a collective-permute of the 1-2 boundary rows per conv
+— tiny next to the activation traffic it saves). This is the idiomatic
+JAX formulation: annotate shardings, let the partitioner insert
 collectives. shard_map would be WRONG for SP — each shard would see a
 local H and silently compute zero-padded (wrong) boundary pixels.
 

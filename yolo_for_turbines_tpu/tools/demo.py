@@ -30,6 +30,7 @@ from PIL import Image
 from .. import config as cfg
 from ..inference import Predictor, load_predictor
 from ..utils.plotting import plot_image_with_boxes
+from ..utils.profiling import enable_compilation_cache
 
 
 def predict(predictor: Predictor, np_image: np.ndarray, class_list):
@@ -67,6 +68,7 @@ def run_cli(argv=None):
     ap.add_argument("--nms-iou", type=float, default=cfg.NMS_IOU_THRESHOLD)
     args = ap.parse_args(argv)
 
+    enable_compilation_cache()
     model_path = args.weights or args.checkpoint
     for path_arg, what in ((model_path, "model"), (args.image, "image")):
         if not Path(path_arg).exists():
@@ -119,7 +121,7 @@ def run_cli(argv=None):
 def run_streamlit():  # pragma: no cover - requires streamlit
     import streamlit as st
 
-    st.title("YOLOv3 (TPU) Object Detection")
+    st.title("YOLOv3 Object Detection")
     weights = st.sidebar.text_input("Weights path", "weights/yolov3.weights")
     conf = st.sidebar.slider("Confidence", 0.0, 1.0, cfg.CONF_THRESHOLD)
     nms_iou = st.sidebar.slider("NMS IoU", 0.0, 1.0, cfg.NMS_IOU_THRESHOLD)

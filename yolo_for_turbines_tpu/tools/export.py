@@ -49,7 +49,7 @@ def main(argv=None) -> Path:
     )
     ap.add_argument(
         "--export-platforms",
-        default="cpu,tpu",
+        default="cpu,cuda",
         help="comma-separated jax.export lowering platforms",
     )
     args = ap.parse_args(argv)

@@ -13,6 +13,7 @@ from pathlib import Path
 
 from .. import config as cfg
 from ..config import TrainConfig
+from ..utils.profiling import enable_compilation_cache
 from ..utils.seed import seed_everything
 from .hpo import load_config
 from .trainer import train
@@ -44,6 +45,7 @@ def main(argv=None):
     ap.add_argument("--freeze-backbone", action="store_true")
     args = ap.parse_args(argv)
 
+    enable_compilation_cache()
     seed_everything(args.seed)
 
     overrides = {}

@@ -1,7 +1,7 @@
 """Checkpointing via orbax (params + batch stats + optimizer state + step).
 
 Replaces torch.save state_dict checkpoints (reference: code/utils.py:383-416)
-with orbax's async-capable TPU-friendly format. The reference's
+with orbax's async-capable checkpoint format. The reference's
 "force lr into param groups on load" semantics are preserved by the caller
 rebuilding the optax schedule from its (possibly new) TrainConfig -- the
 schedule is a pure function of step, so restoring `step` + a new lr is

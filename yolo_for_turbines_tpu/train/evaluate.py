@@ -48,7 +48,7 @@ def make_eval_boxes_step(
     Cached on (model, dtype, K, G, thresholds): the model handle is a
     hashable frozen dataclass, so repeated eval epochs reuse ONE jit (and
     its compiled executables) instead of paying a fresh trace+compile per
-    call — on the TPU a full-model compile is ~90s (benchmarks/RESULTS.md).
+    call — a full-model compile takes tens of seconds.
     The thresholds are baked into the compiled NMS, so callers that pass
     non-default values get a distinct executable rather than a silently
     ignored argument.

@@ -2,7 +2,7 @@
 
 The reference logs everything to wandb (reference: code/train.py:87-90,
 133-136, 149-153). wandb is optional here: the same `log` calls fan out to
-whichever sinks exist, so training is observable in air-gapped TPU pods.
+whichever sinks exist, so training is observable on air-gapped hosts.
 """
 
 from __future__ import annotations

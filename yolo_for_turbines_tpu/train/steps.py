@@ -1,6 +1,6 @@
 """Compiled train/eval steps: optax SGD + warmup, donated state, DP sharding.
 
-TPU-first replacements for the reference's loop internals
+JAX replacements for the reference's loop internals
 (reference: code/train.py:34-92):
 
 - AMP autocast + GradScaler -> bf16 compute with f32 params/BN/loss. bf16 has
@@ -13,7 +13,7 @@ TPU-first replacements for the reference's loop internals
   mask (reference sets requires_grad=False, code/model.py:306-309).
 - data parallelism -> the step is jitted with the batch sharded over the
   mesh's "data" axis and state replicated; XLA inserts the gradient
-  all-reduce over ICI (no NCCL/DDP analogue needed).
+  all-reduce (no hand-written DDP analogue needed).
 
 One compiled executable exists per image-size bucket (multi-scale training's
 7 sizes, reference code/config.py:43-45) -- shapes are static per bucket.
@@ -91,8 +91,8 @@ def _cached_tx(mask_key) -> optax.GradientTransformation:
     momentum/weight_decay placeholders are overwritten per trial at init
     (`_set_injected_hyperparams`). Sharing the tx OBJECT is what lets
     `make_train_step`'s cache key match across HPO trials, so trial 2
-    reuses trial 1's compiled executable instead of paying ~90-100 s/bucket
-    of TPU compilation (benchmarks/RESULTS.md)."""
+    reuses trial 1's compiled executable instead of compiling every
+    bucket again."""
     tx = optax.inject_hyperparams(_sgd_builder)(
         learning_rate=1.0, momentum=0.0, weight_decay=0.0
     )
@@ -263,7 +263,7 @@ def _cached_train_step(model: YOLOv3, tx, compute_dtype_name: str, mesh):
         img, tgt = _batch_shardings(mesh)
         return jax.jit(
             train_step,
-            in_shardings=(repl, img, (tgt, tgt, tgt), repl),
+            in_shardings=(repl, img, tgt, repl),
             out_shardings=(repl, repl),
             donate_argnums=(0,),
         )
@@ -340,7 +340,7 @@ def _cached_eval_step(model: YOLOv3, compute_dtype_name: str, mesh):
         img, tgt = _batch_shardings(mesh)
         return jax.jit(
             eval_step,
-            in_shardings=(repl, img, (tgt, tgt, tgt), repl),
+            in_shardings=(repl, img, tgt, repl),
             out_shardings=repl,
         )
     return jax.jit(eval_step)

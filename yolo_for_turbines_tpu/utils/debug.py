@@ -1,4 +1,4 @@
-"""Debug-mode numerics guards (TPU-native NaN detection).
+"""Debug-mode numerics guards (NaN detection under jit).
 
 The reference sprinkles NaN asserts through the forward pass and training
 loop (reference: code/model.py:175,183-184; code/train.py:84-85). Under jit
